@@ -40,13 +40,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-        jax.config.update(
-            "jax_persistent_cache_min_compile_time_secs", 5.0
-        )
-    except Exception:
-        pass
+    from george_tpu.utils import use_compile_cache
+
+    use_compile_cache()
 
     from george_tpu import kernels
     from george_tpu.solvers.linalg import assemble_dense, cholesky_factor
@@ -54,8 +50,8 @@ def main():
         build_structure, hodlr_factor, hodlr_solve,
     )
 
-    on_tpu = jax.devices()[0].platform != "cpu"
-    dtype = np.float32 if on_tpu else np.float64
+    on_accelerator = jax.devices()[0].platform != "cpu"
+    dtype = np.float32 if on_accelerator else np.float64
     ns = [int(v) for v in args.ns.split(",")]
 
     rng = np.random.default_rng(42)

@@ -1,11 +1,12 @@
 # -*- coding: utf-8 -*-
-"""Per-stage profile of the N=1e5 headline evaluation (the 43 ms budget).
+"""Per-stage profile of the N=1e5 headline evaluation.
 
-Times each stage of the fused log-likelihood+gradient on the real chip,
-pipelined (16 queued evals, one sync) exactly like ``bench.py``:
+Times each stage of the fused log-likelihood+gradient on the default
+device, pipelined (16 queued evals, one sync) exactly like ``bench.py``.
+The stages are host-clock differences, not device times from a trace:
 
   leaf_assemble   batched leaf gram blocks
-  leaf_chol       Pallas panel Cholesky of the leaf blocks
+  leaf_chol       batched XLA Cholesky of the leaf blocks
   lowrank         skeleton factors for all levels (_all_lowrank)
   factor          full hodlr_factor (assemble + chol + sweep)
   solve           hodlr_solve on one RHS
@@ -28,26 +29,22 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from george_tpu.utils import expose_host_cpu
-    expose_host_cpu()
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except Exception:
-        pass
+    from george_tpu.utils import full_precision_matmuls, use_compile_cache
 
-    sys.path.insert(0, "/root/repo")
+    use_compile_cache()
+    sys.path.insert(
+        0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    )
     import bench as benchmod
     from george_tpu.solvers.hodlr import (
         build_structure, select_aca_pivots, hodlr_factor, hodlr_solve,
-        _all_lowrank, _block_matrix, _batched_cholesky,
+        _all_lowrank, _block_matrix,
     )
-    from george_tpu.utils import full_precision_matmuls
 
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 100_000
     variant = sys.argv[2] if len(sys.argv) > 2 else "smooth"
-    on_tpu = jax.devices()[0].platform != "cpu"
-    use_f64 = (not on_tpu) and jax.config.jax_enable_x64
+    on_accelerator = jax.devices()[0].platform != "cpu"
+    use_f64 = (not on_accelerator) and jax.config.jax_enable_x64
     dtype = np.float64 if use_f64 else np.float32
     kernel, x, y, yerr2, rank = benchmod._dataset(variant, n, dtype)
 
@@ -91,7 +88,7 @@ def main():
     @jax.jit
     @full_precision_matmuls
     def leaf_chol(Kb):
-        return _batched_cholesky(Kb)
+        return jnp.linalg.cholesky(Kb)
 
     @jax.jit
     @full_precision_matmuls
@@ -124,8 +121,7 @@ def main():
         jax.block_until_ready(fn(args_of(thetas[0])))
         if n > 300_000:
             # big-N: queueing 16 calls would hold 16 multi-GB outputs
-            # in HBM at once — block per call with unique inputs (the
-            # serving runtime replays cached (program, input) pairs)
+            # in device memory at once — block per call
             best = np.inf
             for _ in range(2):
                 for _k in range(3):
@@ -155,7 +151,7 @@ def main():
     out["factor_ms"] = round(1e3 * timed(factor, lambda t: t), 2)
     out["factor_solve_ms"] = round(1e3 * timed(solve_with, lambda t: t), 2)
     if n <= 300_000:
-        # reverse-mode through the factorization exceeds HBM above this
+        # reverse-mode through the factorization outgrows memory above this
         # (bench.py switches to the Hutchinson split there)
         out["loglike_ms"] = round(1e3 * timed(ll_j, lambda t: t), 2)
         out["vag_ms"] = round(1e3 * timed(vag, lambda t: t), 2)

@@ -45,7 +45,7 @@ def main():
         ))
         # f64 (CPU): solver parity to ~1e-7. f32 accelerators: BOTH
         # solvers carry ~1e-4-level rounding, so their DIFFERENCE sits
-        # at the f32 floor (measured on a v5e at n=1200: 1.1e-4)
+        # at the f32 floor (~1e-4 at n=1200)
         tol = 1e-4 if jax.config.jax_enable_x64 else 5e-4
         assert abs(ll_b - ll_h) / abs(ll_b) < tol
 

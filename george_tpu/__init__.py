@@ -1,13 +1,14 @@
 # -*- coding: utf-8 -*-
-"""george-tpu: TPU-native Gaussian-process regression and inference.
+"""george-tpu: Gaussian-process regression and inference on NVIDIA GPUs,
+through JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 ``gptune/george`` reference (see SURVEY.md): a YAML kernel DSL compiled to
 vmapped JAX covariance functions, exact (batched Cholesky), hierarchical
 (HODLR-class) and compact-support sparse solvers, autodiff and Hutchinson
 marginal-likelihood gradients, posterior prediction and sampling, and
 hyperparameter inference via NUTS/HMC, ensemble MCMC and VI with chains
-sharded over TPU device meshes.
+sharded over device meshes.
 """
 
 __version__ = "0.1.0"

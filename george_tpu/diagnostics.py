@@ -10,7 +10,7 @@ off:
 * :class:`timer` — a context manager accumulating named wall-clock spans
   into a global registry (device-synchronized when a result is given);
 * :func:`report` — the collected spans;
-* :func:`trace` — a ``jax.profiler`` trace context for TPU timelines;
+* :func:`trace` — a ``jax.profiler`` trace context for device timelines;
 * solver ``verbose=True`` flags route through :func:`log_span` instead of
   bare prints.
 """

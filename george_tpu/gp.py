@@ -2,7 +2,7 @@
 """The user-facing GP object.
 
 API-compatible re-implementation of the reference ``GP``
-(``src/george/gp.py:23-731``) over the TPU-native stack:
+(``src/george/gp.py:23-731``) over the JAX stack:
 
 * the covariance is a compiled JAX pair function (``kernels/base.py``);
 * solvers factorize on-device inside fused jitted functions;

@@ -531,7 +531,7 @@ class StationaryKernel(Kernel):
         blocked = bool(self.blocked)
         if blocked:
             # static per-axis bounds (python floats): no captured constant
-            # arrays, Pallas-compatible (see ops/assemble.py)
+            # arrays in the traced pair function
             axes_s = tuple(int(a) for a in self.axes)
             bounds_s = tuple(
                 (float(lo), float(hi))

@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
 """Kernel DSL compiler: YAML specs -> generated JAX kernel classes.
 
-This is the TPU-native analogue of the reference's build-time codegen pipeline
+This is the in-tree analogue of the reference's build-time codegen pipeline
 (``generate_kernels.py`` + ``templates/{kernels.h,kernels.py,parser.h}``): one
 YAML file per kernel in ``george_tpu/kernels/specs/`` compiles into
 ``george_tpu/kernels/generated.py``.  Unlike the reference — whose generated

@@ -193,7 +193,7 @@ def metric_r2_fn(metric_type, axes, ndim):
 
     # Static per-axis indexing (not a gathered index array): XLA emits
     # plain slices, and the pair function stays free of captured constant
-    # arrays so it can run inside Pallas kernels (ops/assemble.py).
+    # arrays (which would become constants of every solver program).
     def _diff(x1, x2):
         if axes == tuple(range(x1.shape[0])):
             return x1 - x2

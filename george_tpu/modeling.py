@@ -1,13 +1,13 @@
 # -*- coding: utf-8 -*-
 """Named-parameter modeling protocol.
 
-A fresh, TPU-oriented re-implementation of the modeling protocol exposed by the
+A fresh, accelerator-oriented re-implementation of the modeling protocol exposed by the
 reference (``/root/reference/src/george/modeling.py:11-515``): ordered parameter
 vectors with names, freeze/thaw masks, bounds that induce a uniform ``log_prior``,
 nested composition via :class:`ModelSet` with ``name:param`` paths, and a
 finite-difference default ``compute_gradient``.
 
-Design differences from the reference (deliberate, TPU-first):
+Design differences from the reference (deliberate, accelerator-first):
 
 * Parameter storage is a single contiguous ``numpy`` array per model (not one
   Python attribute per parameter), so the full vector round-trips to/from JAX

@@ -1,4 +1,4 @@
-// TPU-framework host-side neighbor engine: kd-tree radius/kNN queries and
+// Host-side neighbor engine: kd-tree radius/kNN queries and
 // locality orderings.
 //
 // The reference depends on out-of-tree trees for these (sklearn BallTree

@@ -1,18 +1,6 @@
 # -*- coding: utf-8 -*-
-"""Pallas TPU kernels for the hot compute ops: the batched leaf Cholesky
-(load-bearing default inside the hierarchical factorization) and the
-lane-folded banded (DIA) matvec (default TPU path for iterative sparse
-solves). Scalar-pair and matmul-identity Pallas assembly experiments
-were measured (24x slower / at parity vs XLA's fused pairwise path) and
-removed — the XLA vmapped assembly IS the fast path on this hardware.
-"""
-
-from .chol import cholesky, pallas_cholesky, pallas_cholesky_blocked  # noqa: F401
-from .dia import dia_matvec_pallas  # noqa: F401
-
-__all__ = [
-    "cholesky",
-    "pallas_cholesky",
-    "pallas_cholesky_blocked",
-    "dia_matvec_pallas",
-]
+"""Numerical building blocks outside the solvers: the double-single
+(two-float) SMW core inverse behind ``GEORGE_TPU_CORE_DS`` (``ds.py``).
+The leaf Cholesky and the banded matvec are plain XLA
+(``jnp.linalg.cholesky`` in ``solvers/hodlr.py``, ``dia_apply`` in
+``solvers/sparse.py``)."""

@@ -1,23 +1,21 @@
 # -*- coding: utf-8 -*-
 """Double-single (two-float) arithmetic and a batched Gauss-Jordan
-inverse + log-determinant for small, ill-conditioned matrices on TPU.
+inverse + log-determinant for small, ill-conditioned matrices in f32.
 
 Why this exists: the HODLR/SMW cascade inverts one tiny ``(2c, 2c)``
 core per sibling pair per level (``solvers/hodlr.py::hodlr_factor``).
-Those cores are ill-conditioned for smooth long-range kernels (measured
-kappa up to 7e6 at N=1e6), and an f32-COMPUTED explicit inverse carries
+Those cores are ill-conditioned for smooth long-range kernels (kappa up
+to ~7e6 at N=1e6), and an f32-COMPUTED explicit inverse carries
 ``kappa * eps`` forward error in its *entries* — which the T-factor
-update chain then amplifies with O(1) gain once the tree is deep enough.
-Measured on-chip at N=1e6 (L=13): solve residual ``|Kz - r|/|r| = 9.0``
-and a +1263-nat logdet bias, while the same cascade at N=2e5 (L=11) is
-clean to 6.5e-4. An accurately-computed-then-f32-CAST inverse is benign
-(the f64-build/f32-solve precision-ladder rung reproduces no error), so
-the fix is computing ONLY the core inverse + logdet in higher precision.
+update chain can amplify with O(1) gain once the tree is deep enough.
+The hypothesis behind this module is that computing ONLY the core
+inverse + logdet in higher precision removes that error; it is opt-in
+(``GEORGE_TPU_CORE_DS=1``) and no benchmark turns it on.
 
-TPUs have no f64. This module emulates ~2x-f32 precision (about 48
-mantissa bits) with error-free transformations on f32 pairs
-``(hi, lo)`` — Dekker/Knuth two_sum/two_prod, no FMA required — and runs
-Gauss-Jordan with partial pivoting entirely on the VPU. The matrices are
+This module emulates ~2x-f32 precision (about 48 mantissa bits) with
+error-free transformations on f32 pairs ``(hi, lo)`` — Dekker/Knuth
+two_sum/two_prod, no FMA required — and runs Gauss-Jordan with partial
+pivoting as batched elementwise work. The matrices are
 tiny (m = 2c <= ~96) and batched (p up to n_pad/2m), so the O(m) masked
 sequential steps cost milliseconds against the level sweep they protect.
 

@@ -5,19 +5,19 @@ prediction.
 The reference's distributed story is MPI inside out-of-tree backends
 (SuperLU_DIST / ButterflyPACK behind ``dPy_BPACK_wrapper``,
 ``basic.py:11``) plus single-process emcee walkers (SURVEY.md §2.5). The
-TPU-native equivalents here:
+equivalents here:
 
 * **chain parallelism** — the sampler batch axis (walkers/chains) sharded
   over a 1-D ``('chains',)`` mesh. The samplers' cross-chain reductions
   (mean acceptance for dual averaging, pooled Welford mass estimation,
   stretch-move partner lookups) are plain ``jnp`` ops on the batch axis, so
   under ``jit`` with sharded inputs XLA lowers them to ``psum`` /
-  ``all_gather`` collectives over ICI — no hand-written communication.
+  ``all_gather`` collectives (NCCL between cards) — no hand-written
+  communication.
 * **data parallelism** — embarrassingly parallel axes (posterior test
   points, multi-start optimizations) sharded the same way.
 * **multi-host** — ``initialize()`` wraps ``jax.distributed.initialize``;
-  the same jitted functions run unchanged over a multi-host mesh (DCN
-  between slices).
+  the same jitted functions run unchanged over a multi-host mesh.
 """
 
 import numpy as np
@@ -111,7 +111,7 @@ def sharded_sample_hmc(mesh, key, log_prob_fn, p0, num_warmup=500,
 
 def sharded_run_ensemble(mesh, key, p0, log_prob_fn, nsteps, **opts):
     """Stretch-move ensemble with walkers sharded over ``mesh``. The
-    red/black cross-half partner gathers become ICI collectives."""
+    red/black cross-half partner gathers become collectives."""
     from ..sampling.ensemble import run_ensemble
 
     p0 = shard_chains(mesh, p0)

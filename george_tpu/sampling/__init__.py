@@ -1,6 +1,6 @@
 # -*- coding: utf-8 -*-
 """Hyperparameter inference engines (the reference's L7 ecosystem layer,
-``docs/tutorials/hyper.rst``, rebuilt TPU-native).
+``docs/tutorials/hyper.rst``, rebuilt as fused device programs).
 
 * :mod:`ensemble` — affine-invariant stretch-move MCMC (emcee semantics),
   fully fused and chain-shardable.

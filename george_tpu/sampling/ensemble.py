@@ -128,7 +128,7 @@ def run_ensemble(key, p0, log_prob_fn, nsteps, thin=1, a=2.0):
 
 
 class EnsembleSampler(object):
-    """emcee-style driver over the fused TPU ensemble update.
+    """emcee-style driver over the fused device ensemble update.
 
     :param nwalkers: number of walkers (even).
     :param ndim: parameter dimension.

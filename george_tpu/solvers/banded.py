@@ -12,9 +12,9 @@ sequential block Cholesky:
     ``L_i = chol(A_i - C_i C_i^T)``
 
 — O(n b^2) work as a ``lax.scan`` of dense ``(b, b)`` Cholesky /
-triangular-solve / matmul steps, exactly the shapes the MXU wants.
+triangular-solve / matmul steps, dense batched shapes.
 
-This is the TPU-native answer to the reference's **SuperLU_DIST sparse
+This is the in-tree answer to the reference's **SuperLU_DIST sparse
 direct** backend (``basic.py:26,177,206,258`` there): where the
 iterative path pays CG iterations per solve and accepts a *stochastic*
 SLQ log-determinant, the direct path gives the exact log-determinant,

@@ -1,11 +1,11 @@
 # -*- coding: utf-8 -*-
-"""Exact dense solver: batched TPU Cholesky (reference ``basic.py:18-317``).
+"""Exact dense solver: fused XLA Cholesky (reference ``basic.py:18-317``).
 
 The reference's dense path assembles K with an O(n^2) C++ loop and factors
 with LAPACK; here assembly is a fused vmapped JAX computation and the
 factorization is XLA's blocked Cholesky, all inside one jitted function. The
 reference's two out-of-tree MPI backends (SuperLU_DIST sparse-direct and
-ButterflyPACK compression, ``basic.py:80-258``) are covered TPU-natively by
+ButterflyPACK compression, ``basic.py:80-258``) are covered in-tree by
 :class:`george_tpu.solvers.SparseSolver` (compact support + CG/SLQ) and
 :class:`george_tpu.solvers.HODLRSolver` (hierarchical compression).
 """

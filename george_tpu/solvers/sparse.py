@@ -1,11 +1,11 @@
 # -*- coding: utf-8 -*-
 """Compact-support sparse solver (matrix-free, iterative).
 
-TPU-native replacement for the reference's two out-of-tree MPI sparse
+In-tree replacement for the reference's two out-of-tree MPI sparse
 backends (``basic.py``): SuperLU_DIST distributed sparse-direct
 (``model_sparse=1``, ``basic.py:121-177,258``) and ButterflyPACK compressed
 factorization (``model_bpack=1``, ``basic.py:80-118``). Instead of an
-unstructured CSR direct factorization — a poor fit for the MXU — the sparse
+unstructured CSR direct factorization — a poor fit for batched device code — the sparse
 structure lives in a static **ELL (padded-neighbor) layout** built from the
 host-side radius query (``neighbors.radius_neighbors_csr``; reference
 BallTree, ``kernels.py:131-144``), and everything on device is dense batched
@@ -90,7 +90,7 @@ def ell_matvec(pair_fn, theta, x, nbr, mask, diag, y):
     in ``theta`` — the form to ``jax.jvp`` for dK/dtheta matvecs).
 
     ``y`` may be ``(n,)`` or ``(n, k)`` — the neighbor gather and the
-    per-row contraction are dense ops on static shapes (MXU/VPU friendly).
+    per-row contraction are dense ops on static shapes.
     """
     return ell_apply(ell_values(pair_fn, theta, x, nbr, mask), nbr, diag, y)
 
@@ -162,7 +162,7 @@ def dia_apply(vals, offsets, diag, y):
     """``(K + diag) y`` for a banded structure: every "neighbor slot" is
     a static diagonal offset, so each contribution is an elementwise
     product with a *contiguous shifted slice* of ``y`` — no gathers, the
-    memory pattern TPUs (and XLA fusion) like best."""
+    memory pattern XLA fuses best."""
     squeeze = y.ndim == 1
     Y = y[:, None] if squeeze else y
     n = Y.shape[0]
@@ -362,7 +362,7 @@ class SparseSolver(object):
         self.kernel = kernel
         self.radius = radius
         # banded DIRECT factorization (solvers/banded.py): exact logdet/
-        # solves/gradients for sorted-1-D compact support — the TPU-native
+        # solves/gradients for sorted-1-D compact support — the in-tree
         # analogue of the reference's SuperLU_DIST sparse-direct backend.
         if direct not in ("auto", True, False):
             raise ValueError(
@@ -377,7 +377,7 @@ class SparseSolver(object):
         # Optional row sharding over a device mesh: the ELL tables and all
         # row vectors are placed sharded, and XLA inserts the collectives
         # (all-gather for the neighbor gathers, psum for CG dot products)
-        # — the TPU-native replacement for the reference's MPI SuperLU_DIST
+        # — the in-tree replacement for the reference's MPI SuperLU_DIST
         # distribution (SURVEY.md §2.5).
         self.mesh = mesh
         self.shard_axis = shard_axis
@@ -480,46 +480,18 @@ class SparseSolver(object):
         self._pdiag = kdiag + diag
 
         # f32 cannot reach 1e-10 residuals: floor the tolerance at the
-        # dtype's achievable accuracy so CG terminates on TPU
+        # dtype's achievable accuracy so CG terminates in f32
         eff_tol = max(
             self.cg_tol, 30.0 * float(np.finfo(self._x.dtype).eps)
         )
 
         # Fixed-theta application for iterative loops: the kernel-entry
         # table is hoisted out of the iteration, and banded structures
-        # apply by shifted slices instead of gathers. On TPU the banded
-        # application routes through the lane-folded Pallas kernel
-        # (ops/dia.py) by default: per row block, the overlapping RHS
-        # window is DMA'd into VMEM once instead of streaming y once per
-        # diagonal. Measured on a v5e (n=2e5, band 301): 1.27x faster
-        # 64-iteration CG, exact parity. GEORGE_TPU_PALLAS_DIA=0 opts
-        # out.
+        # apply by shifted slices instead of gathers (XLA fuses the D
+        # shifted multiply-adds into one loop).
         offsets = self._dia_offsets
-        import os
-
-        use_pallas = (
-            offsets is not None
-            and os.environ.get("GEORGE_TPU_PALLAS_DIA", "1") != "0"
-            and jax.default_backend() == "tpu"
-        )
-        if use_pallas:
-            from ..ops.dia import dia_matvec_pallas, DIA_VMEM_BUDGET
-
-            off_tuple = tuple(int(d) for d in offsets)
-            band = int(max(off_tuple)) - int(min(off_tuple))
 
         def apply_fixed(vals, Y):
-            if use_pallas:
-                # per-block VMEM: the (D, block) value-table tile + the
-                # lane-folded (block + band) RHS window; shapes are
-                # trace-time constants, so gate here and fall through to
-                # the XLA form for enormous bands
-                D = vals.shape[1]
-                per_block = (D * 1024 + (1024 + band + 256)) * (
-                    Y.dtype.itemsize
-                )
-                if per_block <= DIA_VMEM_BUDGET:
-                    return dia_matvec_pallas(vals, off_tuple, diag, Y)
             if offsets is not None:
                 return dia_apply(vals, offsets, diag, Y)
             return ell_apply(vals, nbr, diag, Y)
@@ -535,8 +507,8 @@ class SparseSolver(object):
 
         def sqrt_batch(th, B, m):
             # rows of B transported by (K + diag)^{1/2}; reuses the same
-            # fixed-theta application as CG/SLQ (incl. the banded and
-            # Pallas fast paths), with the entry table traced once per
+            # fixed-theta application as CG/SLQ (incl. the banded fast
+            # path), with the entry table traced once per
             # (shape, m) instead of captured as a closure constant
             vals = ell_values(pair, th, self._x, nbr, mask)
             return jax.vmap(
@@ -551,8 +523,8 @@ class SparseSolver(object):
         # Banded DIRECT path (solvers/banded.py): exact block-tridiagonal
         # Cholesky replaces CG solves and the stochastic SLQ logdet —
         # the reference's sparse-direct semantics (SuperLU_DIST,
-        # ``basic.py:177,206,258`` there) with TPU-friendly batched
-        # (b, b) scan steps.
+        # ``basic.py:177,206,258`` there) with batched (b, b) scan
+        # steps.
         self._direct_loglike = None
         self._direct_grad = None
         use_direct = (

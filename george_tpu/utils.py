@@ -14,35 +14,27 @@ __all__ = [
     "check_gradient",
     "full_precision_matmuls",
     "pinned_full_precision",
+    "use_compile_cache",
 ]
 
 
 def full_precision_matmuls(fn):
-    """Trace ``fn`` with every dot/einsum pinned to (near-)full f32
-    precision.
+    """Trace ``fn`` with every dot/einsum pinned to full f32 precision.
 
-    On TPU the MXU runs f32 matmuls in single bfloat16 passes by default
-    (``Precision.DEFAULT``); the solvers' small contractions — Gram
-    matrices for the ridge skeleton interpolation, SMW cores, ACA
-    residual updates, CG/Lanczos recurrences, quadratic forms — are
-    exactly the places where that 8-bit mantissa is catastrophic
-    (measured: the N=1e5 hierarchical log-likelihood lands 9% off truth
-    under DEFAULT and 9e-4 off under HIGHEST). Precision is baked into
-    the jaxpr at trace time, so the policy sticks through
-    jit/vmap/grad/checkpoint.
+    On an NVIDIA GPU an f32 matmul at ``Precision.DEFAULT`` may run on
+    the tensor cores in TF32, which keeps a 10-bit mantissa (about three
+    decimal digits). The solvers' small contractions — Gram matrices for
+    the ridge skeleton interpolation, SMW cores, ACA residual updates,
+    CG/Lanczos recurrences, quadratic forms — are exactly the places
+    where that loss is catastrophic for a likelihood anchored at 2e-3
+    relative error. Precision is baked into the jaxpr at trace time, so
+    the policy sticks through jit/vmap/grad/checkpoint.
 
-    The mode is overridable with ``GEORGE_TPU_MATMUL_PRECISION`` for
-    experiments only — the lever is measured DEAD on a v5e: ``high``
-    (3-pass bfloat16 compensation) with every conditioning-critical
-    block pinned to ``highest`` via :func:`pinned_full_precision` (the
-    ridge interpolation gram AND its projected solve, the SMW core
-    assembly/inversion, the leaf factorization) still lands 1.51e-3 off
-    the N=1e5 anchor AND times 18.5 evals/s vs 23.7 at ``highest``
-    (round-4 on-chip pair) — at skeleton rank ~12 the sweeps are
-    bandwidth/overhead-bound, not MXU-pass-bound. Without the
-    interpolation-solve pin ``high`` is catastrophically wrong (5.5e-2).
-    The env var is read at CALL (trace) time, so one process can trace
-    and compare both modes."""
+    The mode is overridable with ``GEORGE_TPU_MATMUL_PRECISION``
+    (``default`` / ``high`` / ``highest``) for experiments only; the
+    conditioning-critical blocks stay pinned through
+    :func:`pinned_full_precision` whatever it says. The env var is read
+    at CALL (trace) time, so one process can trace and compare modes."""
     import os
 
     import jax
@@ -124,20 +116,23 @@ def check_gradient(obj, *args, **kwargs):
         )
 
 
-def expose_host_cpu():
-    """Add a host ``cpu`` backend alongside the accelerator (must run
-    before any backend initializes; no-op afterwards or when already
-    present). Setup-time numerics that are precision-sensitive — the
-    ACA pivot walk in ``solvers.hodlr.select_aca_pivots`` — then run in
-    host arithmetic while the compute path keeps the accelerator
-    (measured: chip-selected pivots cost 10x in factored-inverse
-    residual at N=1e6; round 5)."""
+def use_compile_cache():
+    """Turn on JAX's persistent compilation cache; returns its directory.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and
+    nothing is set here. Otherwise the cache lives at the fixed
+    ``<checkout>/.jax_cache``: the directory is part of the cache key, so
+    a path that moved between runs would never hit."""
+    import os
+
     import jax
 
-    try:
-        plats = jax.config.jax_platforms
-        if plats and "cpu" not in plats:
-            jax.config.update("jax_platforms", plats + ",cpu")
-        return True
-    except Exception:
-        return False
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".jax_cache",
+    )
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path

@@ -296,7 +296,7 @@ def test_pcg_solve_identity_precond():
 
 
 def test_f32_nystrom_path_subprocess():
-    """The f32 (TPU) branch — Nystrom preconditioner + sandwich SLQ —
+    """The f32 (accelerator) branch — Nystrom preconditioner + sandwich SLQ —
     runs in a subprocess because the suite pins float64 globally. Holds
     the f32 path to dense-oracle accuracy at its working precision.
     (Regression for the f32 instability of the weak hierarchical

@@ -288,8 +288,8 @@ def test_hutchinson_loglike_and_grad_function():
 
     # the HBM-bounded leaf sweep (lax.map chunks) must be bit-identical
     # to the one-shot batched sweep, including through the jacfwd path
-    # the fused Hutchinson entry point uses (this is what keeps the
-    # N=1e6 graph under the 16 GB HBM budget on a v5e)
+    # the fused Hutchinson entry point uses (this is what bounds the
+    # N=1e6 graph's leaf temporaries)
     from george_tpu.solvers import hodlr as hodlr_mod
 
     saved = hodlr_mod._LEAF_MATVEC_CHUNK_BYTES

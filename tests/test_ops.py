@@ -1,6 +1,6 @@
 # -*- coding: utf-8 -*-
-"""Pallas op tests (interpret mode on CPU; the compiled path is exercised
-on TPU hardware by the benchmarks)."""
+"""Numerical building blocks: the hierarchical solver's leaf Cholesky and
+the double-single SMW core inverse (``ops/ds.py``)."""
 
 import numpy as np
 import pytest
@@ -11,103 +11,42 @@ import jax.numpy as jnp
 from george_tpu import kernels
 
 
-def _spd_batch(rng, B, m, dtype=np.float32, near_singular=False):
-    """Random SPD blocks shaped like the solver's leaf boxes."""
-    X = rng.standard_normal((B, m, 3 * m))
-    A = np.einsum("bik,bjk->bij", X, X) / (3 * m)
-    jitter = 1e-4 if near_singular else 1.0
-    A += jitter * np.eye(m)[None]
-    return A.astype(dtype)
+@pytest.mark.parametrize("m", [128, 196, 256])
+def test_leaf_cholesky_f32_matches_numpy(m, monkeypatch):
+    """The hierarchical solver's f32 leaf factor (batched assembly +
+    XLA Cholesky, chunked) against numpy's f64 Cholesky of the same
+    blocks, at the solver's leaf widths (196 is the N=1e5 bench leaf)."""
+    from george_tpu.solvers import hodlr
 
-
-@pytest.mark.parametrize("B,m", [(8, 128), (6, 196), (16, 64), (4, 256)])
-def test_pallas_cholesky_blocked_matches_xla(B, m):
-    """Panel kernel (interpret mode) vs XLA, incl. ragged m needing the
-    identity-extension sublane padding (m=196)."""
-    from george_tpu.ops.chol import pallas_cholesky_blocked
-
-    rng = np.random.default_rng(3)
-    A = jnp.asarray(_spd_batch(rng, B, m))
-    L_ref = np.asarray(jnp.linalg.cholesky(A))
-    L = np.asarray(pallas_cholesky_blocked(A, block_tile=4, interpret=True))
-    scale = np.abs(L_ref).max()
-    assert np.allclose(L, L_ref, atol=3e-5 * scale)
-    # strictly lower-triangular output (upper zeroed)
-    assert np.allclose(L, np.tril(L), atol=0)
-
-
-def test_pallas_cholesky_simple_kernel_matches_xla():
-    from george_tpu.ops.chol import pallas_cholesky
-
-    rng = np.random.default_rng(4)
-    A = jnp.asarray(_spd_batch(rng, 8, 128))
-    L_ref = np.asarray(jnp.linalg.cholesky(A))
-    L = np.asarray(pallas_cholesky(A, block_tile=4, interpret=True))
-    assert np.allclose(L, L_ref, atol=3e-5 * np.abs(L_ref).max())
-
-
-def test_pallas_cholesky_blocked_near_singular():
-    """Small-jitter leaves must stay finite (the f32 regime the
-    full-precision Schur update protects)."""
-    from george_tpu.ops.chol import pallas_cholesky_blocked
-
-    rng = np.random.default_rng(5)
-    A = jnp.asarray(_spd_batch(rng, 4, 128, near_singular=True))
-    L = np.asarray(pallas_cholesky_blocked(A, block_tile=4, interpret=True))
+    # force the chunked scan (2 chunks of 2 leaves) at test sizes
+    monkeypatch.setattr(hodlr, "_LEAF_MATVEC_CHUNK_BYTES", 2 * m * m * 4)
+    B = 4
+    rng = np.random.default_rng(m)
+    x = np.sort(rng.uniform(0, 4.0 * B * m / 128, B * m))[:, None]
+    d = np.full(B * m, 1e-2)
+    kernel = 1.2 * kernels.ExpSquaredKernel(25.0) + 0.3 * (
+        kernels.Matern32Kernel(8.0)
+    )
+    f32 = jnp.float32
+    L = np.asarray(hodlr._leaf_cholesky_chunked(
+        kernel.pair_fn, jnp.asarray(kernel.parameter_vector, f32),
+        jnp.asarray(x, f32).reshape(B, m, 1),
+        jnp.ones((B, m), bool), jnp.asarray(d, f32).reshape(B, m),
+        False,
+    ))
+    assert L.dtype == np.float32 and L.shape == (B, m, m)
     assert np.isfinite(L).all()
-    rec = np.einsum("bik,bjk->bij", L, L)
-    assert np.allclose(rec, np.asarray(A), atol=5e-4)
-
-
-def test_cholesky_wrapper_grad_matches_xla():
-    """custom_vjp backward of ops.chol.cholesky == autodiff through
-    jnp.linalg.cholesky."""
-    from george_tpu.ops.chol import cholesky
-
-    rng = np.random.default_rng(6)
-    A = jnp.asarray(_spd_batch(rng, 3, 32, dtype=np.float64))
-
-    def loss_ours(M):
-        L = cholesky(M)
-        return jnp.sum(jnp.log(jnp.diagonal(L, axis1=-2, axis2=-1))) + (
-            0.01 * jnp.sum(L**2)
-        )
-
-    def loss_xla(M):
-        L = jnp.linalg.cholesky(M)
-        return jnp.sum(jnp.log(jnp.diagonal(L, axis1=-2, axis2=-1))) + (
-            0.01 * jnp.sum(L**2)
-        )
-
-    g1 = np.asarray(jax.grad(loss_ours)(A))
-    g2 = np.asarray(jax.grad(loss_xla)(A))
-    assert np.allclose(g1, g2, atol=1e-9)
-
-
-def test_pallas_dia_matvec_interpret():
-    """Pallas DIA matvec (interpret mode) matches the XLA shifted-slice
-    formulation to machine precision, for vector and multi-RHS, with
-    ragged final row blocks."""
-    from george_tpu.ops.dia import dia_matvec_pallas
-    from george_tpu.solvers.sparse import dia_apply
-
-    rng = np.random.default_rng(0)
-    n, D = 700, 11
-    offsets = tuple(range(-5, 6))
-    vals = rng.standard_normal((n, D))
-    for j, d in enumerate(offsets):
-        idx = np.arange(n) + d
-        vals[(idx < 0) | (idx >= n), j] = 0.0
-    diag = rng.uniform(1, 2, n)
-    valsj, diagj = jnp.asarray(vals), jnp.asarray(diag)
-
-    for rhs_shape in ((n,), (n, 4)):
-        y = jnp.asarray(rng.standard_normal(rhs_shape))
-        ref = np.asarray(dia_apply(valsj, np.asarray(offsets), diagj, y))
-        out = np.asarray(dia_matvec_pallas(
-            valsj, offsets, diagj, y, block_rows=256, interpret=True
-        ))
-        assert np.allclose(ref, out, rtol=1e-12, atol=1e-12)
+    assert np.array_equal(L, np.tril(L))
+    xb = x.reshape(B, m)
+    r2 = (xb[:, :, None] - xb[:, None, :]) ** 2
+    r3 = np.sqrt(3.0 * r2 / 8.0)
+    K = 1.2 * np.exp(-0.5 * r2 / 25.0) + 0.3 * (1 + r3) * np.exp(-r3)
+    K += 1e-2 * np.eye(m)[None]
+    L_ref = np.linalg.cholesky(K)
+    # backward error at f32 rounding; forward error within conditioning
+    rec = np.einsum("bik,bjk->bij", L.astype(np.float64), L)
+    assert np.max(np.abs(rec - K)) <= 1e-5 * np.max(np.abs(K))
+    assert np.max(np.abs(L - L_ref)) <= 1e-3 * np.max(np.abs(L_ref))
 
 
 def test_ds_inv_logdet_matches_f64():

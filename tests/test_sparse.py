@@ -107,7 +107,7 @@ def test_sparse_explicit_radius_and_nns():
 
 def test_sparse_mesh_sharded_matches_unsharded():
     """Row-sharded solver over the device mesh: identical matvecs/solves
-    (XLA inserts the gather/reduction collectives) — the TPU-native
+    (XLA inserts the gather/reduction collectives) — the in-tree
     stand-in for the reference's MPI sparse distribution."""
     import jax
 
@@ -377,7 +377,7 @@ def test_sparse_direct_banded():
     """The banded direct path (block-tridiagonal Cholesky,
     ``solvers/banded.py``) is EXACT: log-likelihood, gradient, fused
     log_prob_fn value+grad, solves, and the triangular square root all
-    match the dense solver to near machine precision — the TPU-native
+    match the dense solver to near machine precision — the in-tree
     sparse-direct semantics of the reference's SuperLU backend
     (``basic.py:177,206,258`` there)."""
     import jax
